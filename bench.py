@@ -1,20 +1,19 @@
-"""Benchmark: krepp-tpu throughput on the current JAX backend.
+"""Benchmark: krepp-tpu throughput on one GPU.
 
-Primary metric (one JSON line, driver contract):
+Primary metric (one JSON line):
 
   {"metric": "dist_reads_per_s", "value": N, "unit": "reads/s",
    "vs_baseline": R, "extras": {...}}
 
-vs_baseline = TPU reads/s over the same engine run on one CPU host process
-(the reference binary cannot be compiled in this image — its submodules and
-toy genomes are stripped — so the CPU run of this engine is the stand-in;
-see BASELINE.md). The CPU baseline is measured twice and the max is taken;
-a warning is printed if it falls below the historically observed floor
-(3000 reads/s), so a contended-host collapse can't silently inflate the
-speedup again (BENCH_r02 regression).
+vs_baseline = GPU reads/s over the same engine run in one CPU process (the
+reference binary is not built here, so the CPU run of this engine is the
+stand-in). The CPU baseline is measured twice and the max is taken; a
+warning is printed if it falls below CPU_FLOOR, so a contended host cannot
+silently inflate the speedup. Refuses to run on anything but a GPU; a
+failed phase makes the exit code non-zero.
 
 extras (each guarded by a wall-clock deadline; missing = skipped):
-  build_kmers_per_s        index build throughput (BASELINE.json metric)
+  build_kmers_per_s        index build throughput (host build)
   dist_big_reads_per_s     dist at reference defaults (k=29 h=13) over a
                            ~25M-k-mer (~1 GB device tables) index
   dist_1k_reads_per_s      dist over a 1000-genome index (event probe)
@@ -35,6 +34,7 @@ import numpy as np
 DEADLINE_S = float(os.environ.get("KREPP_BENCH_DEADLINE", 2400))
 T_START = time.time()
 CPU_FLOOR = 3000.0
+CARD = "cpu"   # the GPU's nvidia-smi name and power limit, set by main()
 
 CONFIGS = {
     # name: (seed, nleaves, glen, k, h, w, m)
@@ -46,8 +46,8 @@ CONFIGS = {
 
 def _cache_dir(name):
     s = CONFIGS[name]
-    return os.path.expanduser(
-        "~/.cache/krepp_tpu_bench/idx-" + "-".join(str(x) for x in s))
+    return os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                        ".bench_cache", "idx-" + "-".join(str(x) for x in s))
 
 
 def time_left():
@@ -56,7 +56,7 @@ def time_left():
 
 def ensure_index(name) -> float:
     """Build the bench index in a CPU subprocess (native winnower; keeps
-    TPU compiles and build RAM out of the measured process).
+    build RAM out of the measured process, which owns the GPU).
 
     Returns build k-mers/s when the build ran now, else 0 (cached)."""
     cache = _cache_dir(name)
@@ -149,20 +149,18 @@ def world_reads(name, n, rlen=150, mut=0.05):
 
 
 def _report_runs(label, nreads, rates):
-    """best + median + spread reporting (VERDICT r04 #7: regressions must
-    be visible through pool-contention noise, not debatable)."""
-    import jax
-
+    """best + median + spread reporting: regressions must be visible
+    through run-to-run noise, with the card and its power limit beside."""
     best = max(rates)
     med = float(np.median(rates))
     spread = best / med if med else float("inf")
     print(f"[bench] {label}: {nreads} reads, best of {len(rates)} -> "
           f"{best:.0f} reads/s (median {med:.0f}, spread {spread:.2f}x) "
-          f"on {jax.devices()[0]}", file=sys.stderr)
+          f"on {CARD}", file=sys.stderr)
     if spread > 1.5:
         print(f"[bench] WARNING: {label} best/median = {spread:.2f}x > 1.5 "
-              "— the pool is contended; treat round-over-round deltas "
-              "with suspicion", file=sys.stderr)
+              "— the host is contended; treat deltas with suspicion",
+              file=sys.stderr)
     return best, med
 
 
@@ -170,10 +168,8 @@ def dist_throughput(engine, codes, batch, n_batches, label="", repeats=3):
     """Pipelined dist leaf-stage reads/s (3 batches in flight, compact
     fetch — the same path the dist driver runs).
 
-    Repeats three times; returns (best, median). Both the shared TPU pool
-    and this 2-core host show multi-x run-to-run contention noise — the
-    best run approximates uncontended capability (BASELINE.md), the median
-    exposes when it doesn't."""
+    Repeats three times; returns (best, median). The best run approximates
+    uncontended capability, the median exposes when it doesn't."""
     from collections import deque
 
     rlen = codes.shape[1]
@@ -273,7 +269,7 @@ def cpu_baseline():
     """Pinned CPU baseline: two runs, max, floor check."""
     best = 0.0
     for rep in range(2):
-        env = dict(os.environ)
+        env = dict(os.environ, JAX_PLATFORMS="cpu")
         out = subprocess.run(
             [sys.executable, os.path.abspath(__file__), "--cpu-baseline"],
             capture_output=True, text=True, timeout=900, env=env,
@@ -307,10 +303,23 @@ def main():
         print(json.dumps({"cpu_reads_per_s": round(v, 1)}))
         return
 
+    import jax
+
+    dev = jax.devices()[0]
+    if dev.platform != "gpu":
+        print(f"[bench] needs a GPU; JAX runs on {dev.platform}",
+              file=sys.stderr)
+        sys.exit(2)
+    global CARD
+    CARD = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True).stdout.strip().splitlines()[0]
     from krepp_tpu import configure
 
     configure()
     extras = {}
+    failed = []
 
     # ---- build throughput (host native path; also primes the caches)
     rate = ensure_index("base")
@@ -324,64 +333,73 @@ def main():
     extras["dist_reads_per_s_median"] = round(med, 1)
     del engine
 
-    # ---- extras under the deadline
-    try:
-        if time_left() > 600:
-            r = ensure_index("big")
-            if r:
-                extras["build_kmers_per_s"] = round(r, 0)
-            engine = load_engine("big")
-            codes = world_reads("big", 16384 * 6)
-            v, med = dist_throughput(engine, codes, 16384, 4,
-                                     label="dist big(h13)")
-            extras["dist_big_reads_per_s"] = round(v, 1)
-            extras["dist_big_reads_per_s_median"] = round(med, 1)
-            del engine
-    except Exception as e:  # noqa: BLE001
-        print(f"[bench] big-index bench failed: {e}", file=sys.stderr)
-    try:
-        if time_left() > 500:
-            ensure_index("1k")
-            engine = load_engine("1k")
-            b = min(8192, engine.suggested_batch_reads())
-            codes = world_reads("1k", b * 6)
-            v, med = dist_throughput(engine, codes, b, 4,
-                                     label="dist 1k-genome")
-            extras["dist_1k_reads_per_s"] = round(v, 1)
-            extras["dist_1k_reads_per_s_median"] = round(med, 1)
-            del engine
-    except Exception as e:  # noqa: BLE001
-        print(f"[bench] 1k-genome bench failed: {e}", file=sys.stderr)
-    try:
-        if time_left() > 400:
-            v, med = place_throughput("base")
-            extras["place_reads_per_s"] = round(v, 1)
-            extras["place_reads_per_s_median"] = round(med, 1)
-    except Exception as e:  # noqa: BLE001
-        print(f"[bench] place bench failed: {e}", file=sys.stderr)
-    try:
-        if time_left() > 350:
-            v, med = place_throughput("1k", n_batches=8)
-            extras["place_1k_reads_per_s"] = round(v, 1)
-            extras["place_1k_reads_per_s_median"] = round(med, 1)
-    except Exception as e:  # noqa: BLE001
-        print(f"[bench] 1k place bench failed: {e}", file=sys.stderr)
+    def phase(label, need_s, fn):
+        """One extra phase under the deadline; a failure is recorded and
+        makes the exit code non-zero."""
+        if time_left() <= need_s:
+            return
+        try:
+            fn()
+        except Exception as e:  # noqa: BLE001 - reported, then exit 1
+            import traceback
+
+            traceback.print_exc()
+            print(f"[bench] {label} failed: {e}", file=sys.stderr)
+            failed.append(label)
+
+    def big():
+        r = ensure_index("big")
+        if r:
+            extras["build_kmers_per_s"] = round(r, 0)
+        engine = load_engine("big")
+        codes = world_reads("big", 16384 * 6)
+        v, med = dist_throughput(engine, codes, 16384, 4,
+                                 label="dist big(h13)")
+        extras["dist_big_reads_per_s"] = round(v, 1)
+        extras["dist_big_reads_per_s_median"] = round(med, 1)
+
+    def dist_1k():
+        ensure_index("1k")
+        engine = load_engine("1k")
+        b = min(8192, engine.suggested_batch_reads())
+        codes = world_reads("1k", b * 6)
+        v, med = dist_throughput(engine, codes, b, 4,
+                                 label="dist 1k-genome")
+        extras["dist_1k_reads_per_s"] = round(v, 1)
+        extras["dist_1k_reads_per_s_median"] = round(med, 1)
+
+    def place(name, key, **kw):
+        def run():
+            v, med = place_throughput(name, **kw)
+            extras[key] = round(v, 1)
+            extras[key + "_median"] = round(med, 1)
+        return run
+
+    phase("big-index dist", 600, big)
+    phase("1k-genome dist", 500, dist_1k)
+    phase("place", 400, place("base", "place_reads_per_s"))
+    phase("1k place", 350, place("1k", "place_1k_reads_per_s",
+                                 n_batches=8))
 
     vs_baseline = 1.0
-    try:
-        if time_left() > 120:
-            cpu_v = cpu_baseline()
-            if cpu_v:
-                extras["cpu_reads_per_s"] = round(cpu_v, 1)
-                vs_baseline = value / cpu_v
-                print(f"[bench] speedup vs cpu: {vs_baseline:.2f}x",
-                      file=sys.stderr)
-    except Exception as e:  # noqa: BLE001
-        print(f"[bench] cpu baseline failed: {e}", file=sys.stderr)
 
+    def baseline():
+        nonlocal vs_baseline
+        cpu_v = cpu_baseline()
+        if cpu_v:
+            extras["cpu_reads_per_s"] = round(cpu_v, 1)
+            vs_baseline = value / cpu_v
+            print(f"[bench] speedup vs cpu: {vs_baseline:.2f}x",
+                  file=sys.stderr)
+
+    phase("cpu baseline", 120, baseline)
+    extras["card"] = CARD
     print(json.dumps({"metric": "dist_reads_per_s", "value": round(value, 1),
                       "unit": "reads/s", "vs_baseline": round(vs_baseline, 3),
                       "extras": extras}))
+    if failed:
+        print(f"[bench] failed phases: {', '.join(failed)}", file=sys.stderr)
+        sys.exit(1)
 
 
 if __name__ == "__main__":

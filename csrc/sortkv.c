@@ -1,6 +1,6 @@
 /* Parallel LSD radix sort of (u64 key, u32 payload) pairs.
  *
- * The index build's global sort-and-group union (the TPU-native replacement
+ * The index build's global sort-and-group union (the accelerator-friendly replacement
  * for the reference's locked union tree, ref: src/krepp.cpp:248-303,
  * src/table.cpp:182-232) sorts tens of millions of (row<<32|residual, leaf)
  * tuples; numpy's single-threaded comparison sort is the bottleneck there.
@@ -167,8 +167,7 @@ int64_t krepp_sort_unique_pairs(uint32_t *rows, uint32_t *res, int64_t n)
 }
 
 /* 2-bit-pack a read batch for the device upload (the host half of
- * codec.pack_codes_host; numpy needed several full-array passes, ~30 ms
- * per 16k-read batch on a small host). codes: u8 [B, L] base codes
+ * codec.pack_codes_host; numpy needs several full-array passes). codes: u8 [B, L] base codes
  * (0..3 = ACGT, >=4 invalid); lengths: i32 [B]. Fills packed u32
  * [B, (L+15)/16] and vbits u32 [B, (L+31)/32] (1 = valid base), and
  * returns the number of reads carrying an invalid base inside their

@@ -1,16 +1,15 @@
-"""krepp-tpu: TPU-native k-mer LSH indexing, ML distance estimation and
-phylogenetic placement.
+"""krepp-tpu: k-mer LSH indexing, ML distance estimation and phylogenetic
+placement on a GPU (NVIDIA H100), in JAX.
 
 A from-scratch JAX/XLA/Pallas implementation with the capabilities of
-bo1929/krepp (reference mounted at /root/reference): `index`, `dist`, `place`,
-`sketch`, `seek`, `inspect`.
+bo1929/krepp: `index`, `dist`, `place`, `sketch`, `seek`, `inspect`.
 
-Design (TPU-first, not a port):
+Design (data-parallel, not a port):
   * k-mers are handled as windows of small integer base codes; LSH hashes and
-    residual encodings are computed as dot products with static 0/1 weight
-    vectors (MXU/VPU friendly) instead of the reference's BMI2 PEXT bit tricks
+    residual encodings are computed as one convolution with static integer
+    weights instead of the reference's BMI2 PEXT bit tricks
     (ref: src/lshf.cpp:61-71).
-  * the frozen index is a pair of dense HBM arrays (residuals + colors) with a
+  * the frozen index is a pair of dense device arrays (residuals + colors) with a
     CSR row-offset array (ref: src/table.hpp:103-146), sharded by LSH-row
     block across a device mesh.
   * the per-read match state is order-independent: a segment-min over bucket
@@ -35,22 +34,27 @@ def enable_x64() -> None:
     jax.config.update("jax_enable_x64", True)
 
 
-def configure(cache_dir: str | None = None) -> None:
-    """Standard runtime configuration: x64 + persistent compilation cache.
+def cache_dir() -> str | None:
+    """Where configure() points JAX's persistent compilation cache.
 
-    The compilation cache matters a lot on remotely-attached TPUs where a
-    cold compile takes tens of seconds.
-    """
+    None when JAX_COMPILATION_CACHE_DIR is set: JAX reads that variable
+    itself. Otherwise a fixed directory in the checkout, so that one run
+    finds what the last one compiled (the path is part of the cache key)."""
     import os
 
+    if os.environ.get("JAX_COMPILATION_CACHE_DIR"):
+        return None
+    return os.path.join(os.path.dirname(os.path.dirname(
+        os.path.abspath(__file__))), ".jax_cache")
+
+
+def configure() -> None:
+    """Standard runtime configuration: x64 + persistent compilation cache."""
     import jax
 
     enable_x64()
-    cache_dir = cache_dir or os.environ.get(
-        "KREPP_TPU_CACHE", os.path.expanduser("~/.cache/krepp_tpu_jax"))
-    try:
-        jax.config.update("jax_compilation_cache_dir", cache_dir)
-        jax.config.update("jax_persistent_cache_min_entry_size_bytes", -1)
-        jax.config.update("jax_persistent_cache_min_compile_time_secs", 0.5)
-    except Exception:  # noqa: BLE001 - cache is best-effort
-        pass
+    path = cache_dir()
+    if path is not None:
+        jax.config.update("jax_compilation_cache_dir", path)
+    jax.config.update("jax_persistent_cache_min_entry_size_bytes", -1)
+    jax.config.update("jax_persistent_cache_min_compile_time_secs", 0.5)

@@ -1,10 +1,10 @@
 """Vectorized k-mer codec: base codes -> LSH rows, residual encodings, bp bits.
 
-TPU-first design. The reference packs k-mers into 64-bit integers and uses
+The reference packs k-mers into 64-bit integers and uses
 BMI2 PEXT / rolling updates (ref: src/common.hpp:225-243, src/lshf.cpp:61-71).
 Here a sequence is an int32 vector of base codes (A=0, C=1, G=2, T=3, N/other=4)
 and every per-k-mer quantity is a sum of statically-shifted slices — pure
-VPU-friendly elementwise work with no gathers, no 64-bit integers on the
+elementwise work with no gathers, no 64-bit integers on the
 query path, and no sequential dependence between positions.
 
 Bit-position convention (matches the reference): for the k-mer ending at
@@ -76,8 +76,7 @@ def pad_codes_batch(code_list, pad_to: int | None = None) -> Tuple[np.ndarray, n
 def pack_codes_host(codes: np.ndarray, lengths: np.ndarray):
     """[B, L] uint8 base codes -> (packed u32 [B, ceil(L/16)], vbits or None).
 
-    The device link is the throughput bottleneck on remotely-attached TPUs;
-    2-bit packing cuts the per-batch upload ~4x. vbits (one validity bit per
+    2-bit packing cuts the per-batch host-to-device copy 4x. vbits (one validity bit per
     base) is returned only when some read contains a non-ACGT code inside
     its length — for the common all-ACGT batch the per-read `lengths` alone
     reconstruct validity.
@@ -113,8 +112,7 @@ def unpack_codes(packed: jax.Array, lengths: jax.Array, L: int,
     """Device-side inverse of pack_codes_host -> [B, L] int32 codes.
 
     Positions >= lengths (or with vbits == 0) decode to 4 (invalid).
-    int32 output: 8-bit arrays use (32, 128) tiling on TPU, so the u8
-    round-trip costs relayouts in every consumer; codes are tiny anyway."""
+    int32 output: every consumer computes in int32."""
     B, W = packed.shape
     p32 = jax.lax.bitcast_convert_type(packed, jnp.int32)
     shifts = jnp.asarray((2 * np.arange(16)).astype(np.int32))
@@ -232,16 +230,14 @@ def residual_rc(codes: jax.Array, lsh: LSHParams) -> jax.Array:
 
 @functools.partial(jax.jit, static_argnames=("lsh",))
 def strand_hashes_conv(codes: jax.Array, lsh: LSHParams):
-    """All per-window hash quantities as ONE MXU convolution.
+    """All per-window hash quantities as ONE convolution.
 
     Every LSH quantity is a weighted sum over a k-base window — i.e. a 1-D
-    convolution of the code channels with static integer weights. On TPU the
-    slice-sum formulation above costs ~100 separate fused-slice passes; a
-    single conv runs on the MXU in one pass over the codes.
+    convolution of the code channels with static integer weights: one pass
+    over the codes instead of the ~100 slice sums of the formulation above.
 
-    Exactness: weights are split into 16-bit chunks, so every per-chunk
-    product/sum stays below 2^24 and is exact in f32 (precision=HIGHEST
-    forces full-f32-fidelity MXU passes); chunks recombine in int32.
+    Exactness: weights are split into 8-bit chunks (see below); chunks
+    recombine in int32.
 
     Returns (rix_or, rix_rc, res_or, res_rc, valid), each [..., P], matching
     lsh_hash_or/lsh_hash_rc/residual_or/residual_rc/window_valid bit-for-bit
@@ -260,10 +256,10 @@ def strand_hashes_conv(codes: jax.Array, lsh: LSHParams):
 
     # output channel table: (in_channel, {offset: weight}) per 8-bit chunk.
     # 8-bit chunks keep every weight <= 255 — exactly representable in
-    # bfloat16 — so ONE default-precision bf16 MXU pass is exact: inputs
+    # bfloat16 — so ONE bf16 pass with f32 accumulation is exact: inputs
     # (codes <= 4) and weights are exact bf16 values, products (<= 1020)
     # accumulate exactly in the f32 accumulator, and window sums stay far
-    # below 2^24. (16-bit chunks needed Precision.HIGHEST = 6 passes.)
+    # below 2^24.
     specs = []
 
     def add_chunked(cin, terms):
@@ -306,6 +302,7 @@ def strand_hashes_conv(codes: jax.Array, lsh: LSHParams):
     out = jax.lax.conv_general_dilated(
         xin, jnp.asarray(W).astype(jnp.bfloat16), window_strides=(1,),
         padding="VALID", dimension_numbers=("NCH", "OIH", "NCH"),
+        precision=jax.lax.Precision.DEFAULT,   # bf16 operands are exact
         preferred_element_type=jnp.float32)
     out = out.reshape(lead + out.shape[-2:])          # [..., OutC, P]
 
@@ -385,8 +382,8 @@ def bp64_pair(codes: jax.Array, k: int):
 
     bp64 = sum_j base(bit-position j) << 2j (ref: src/common.hpp:225-243);
     bit-position j corresponds to offset k-1-j in the window. Only needed on
-    the index-build path (minimizer hashing); kept as 32-bit lanes because
-    TPUs have no native 64-bit integer units.
+    the index-build path (minimizer hashing); kept as 32-bit lanes (see
+    core/u64.py).
     """
     lo_js = [j for j in range(k) if j < 16]
     hi_js = [j for j in range(k) if j >= 16]

@@ -14,9 +14,8 @@ import jax.numpy as jnp
 def _cumsum_1d(x):
     """Inclusive int32 cumsum; two-level blocked formulation.
 
-    XLA lowers a flat multi-million-lane cumsum poorly on TPU (measured
-    ~25 ms at 4M lanes); reshaping to [rows, 4096] makes the inner scan a
-    lane-parallel axis-1 cumsum plus a tiny row-offset scan."""
+    Reshaping to [rows, 4096] makes the inner scan a row-parallel axis-1
+    cumsum plus a tiny row-offset scan."""
     N = x.shape[0]
     BLK = 4096
     if N <= BLK:
@@ -32,10 +31,9 @@ def _cumsum_1d(x):
 
 def compact_mask_indices_strided(mask_flat, K: int, blk: int = 1024):
     """compact_mask_indices via a two-level sort for multi-million-lane
-    masks: a per-block [nblk, blk] sort (lane-parallel, ~3x faster than
-    the flat sort at 4M lanes) keeps the first ceil(K/nblk) set lanes per
-    block, then a small global sort of the survivors restores ascending
-    order.
+    masks: a per-block [nblk, blk] sort (row-parallel) keeps the first
+    ceil(K/nblk) set lanes per block, then a small global sort of the
+    survivors restores ascending order.
 
     Blocks sample lanes STRIDED (block b holds lanes b, b+nblk, ...), not
     contiguous: set lanes cluster in lane order (e.g. probe lanes of one
@@ -81,9 +79,7 @@ def compact_mask_indices(mask_flat, K: int):
     (out of bounds): gathers through them clamp to junk that callers must
     ignore, and scatters through them drop (mode='drop').
 
-    Formulated as a key sort of (set ? lane : N): measured 2x faster on
-    TPU than the cumsum+scatter formulation at probe scale (the scatter's
-    random-write issue rate is the bottleneck there)."""
+    Formulated as a key sort of (set ? lane : N)."""
     N = mask_flat.shape[0]
     keys = jnp.where(mask_flat, jax.lax.iota(jnp.int32, N), jnp.int32(N))
     idx = jax.lax.sort(keys)[:K]

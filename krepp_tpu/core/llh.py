@@ -70,10 +70,8 @@ def make_llh(k: int, h: int, hdist_th: int):
     binom_k, binom_hnk = binom_tables(k, h, hdist_th)
 
     def ipow(x, n: int):
-        """x**n by squaring: multiplications only. On TPU, f64 is emulated
-        (double-double) and jnp.power routes through exp/log losing ~1e-8
-        relative accuracy, which is enough to move the Brent minimum at the
-        5th decimal; products stay accurate."""
+        """x**n by squaring: multiplications only, the same on every
+        backend (jnp.power may route through exp/log)."""
         acc = None
         base = x
         while n:
@@ -318,7 +316,7 @@ def brent_on_mask(llh_fast, A, Bx, uc, rho, mask,
     """Batched Brent restricted to mask-selected lanes (moment-form llh).
 
     At scale only a small fraction of (read, candidate) lanes carry matches;
-    optimizing all of them wastes most of the (emulated) f64 work. Lanes are
+    optimizing all of them wastes most of the f64 work. Lanes are
     compacted with lax.top_k into the smallest capacity tier that fits
     (N // divisor for each cap_divisor, then dense). Unselected lanes return
     d = 0.0, v = 0.0 — callers must gate on their own masks.
@@ -348,8 +346,6 @@ def brent_on_mask(llh_fast, A, Bx, uc, rho, mask,
 
     def make_compact(Kb):
         def compact(_):
-            from .ff64 import scatter_set_f64
-
             idx = idx_all[:Kb]
             a = Af[idx]
             b = Bf[idx]
@@ -357,11 +353,9 @@ def brent_on_mask(llh_fast, A, Bx, uc, rho, mask,
             r = rhof[idx]
             d, v = brent_find_minima(lambda dd: llh_fast(dd, a, b, u, r),
                                      (Kb,))
-            # float-float pair scatters: emulated-f64 scatters cost ~4.5 ms
-            # each at these lane counts
             zero = jnp.zeros((N,), F)
-            D = scatter_set_f64(zero, idx, d, guard_fill=False)
-            V = scatter_set_f64(zero, idx, v, guard_fill=False)
+            D = zero.at[idx].set(d, mode="drop")
+            V = zero.at[idx].set(v, mode="drop")
             return D, V
         return compact
 

@@ -17,7 +17,7 @@ Reference quirks reproduced deliberately:
   * sequences shorter than w are skipped entirely, including their HLL
     contribution (ref: src/rqseq.hpp:80-86).
 
-TPU design: all per-position work (validity, bp packing, xur64, LSH row,
+Design: all per-position work (validity, bp packing, xur64, LSH row,
 residual) is computed on device as statically-shifted slice sums
 (see core/codec.py); the data-dependent compaction and trailing-window
 argmin run on host in vectorized numpy. The device part is a parallel scan
@@ -64,9 +64,8 @@ def _window_stats(codes: jax.Array, lsh: LSHParams, w: int):
 def _round_len(n: int) -> int:
     """Bucket contig lengths to limit jit recompiles.
 
-    Pure powers of two: each compile through the remote compiler costs
-    minutes, so at most ~20 shapes can ever exist; the <=2x padding is
-    cheap device work.
+    Pure powers of two: at most ~20 shapes (and compiles) can ever exist;
+    the <=2x padding is cheap device work.
     """
     return 1 << max(8, (n - 1).bit_length())
 

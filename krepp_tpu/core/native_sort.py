@@ -1,6 +1,6 @@
 """ctypes binding for the native parallel radix sort (csrc/sortkv.c).
 
-The global sort-and-group index union (build.py) is the TPU-native
+The global sort-and-group index union (build.py) is the accelerator-friendly
 replacement for the reference's locked union tree
 (ref: src/krepp.cpp:248-303); at tens of millions of tuples numpy's
 single-threaded comparison sort dominates the build, so the key/payload

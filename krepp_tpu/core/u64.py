@@ -1,9 +1,10 @@
 """64-bit integer arithmetic emulated on uint32 pairs.
 
-TPUs have no native 64-bit integer units, so the only 64-bit quantities in
-the framework (the minimizer hash xur64 of the 2-bit packed k-mer, ref:
+The only 64-bit quantities in the framework (the minimizer hash xur64 of the 2-bit packed k-mer, ref:
 src/common.hpp:147-155, and HyperLogLog inputs) are carried as (hi, lo)
-uint32 pairs and manipulated with 16-bit-limb multiplication.
+uint32 pairs and manipulated with 16-bit-limb multiplication. The design
+once targeted a chip without 64-bit integer units; on GPUs and CPUs native
+uint64 would do, and this module is off the query path.
 """
 
 from __future__ import annotations

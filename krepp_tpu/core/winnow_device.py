@@ -1,8 +1,8 @@
 """Fully on-device genome winnowing: minimizers, LSH filter, dedupe, HLL.
 
 The host-compaction path in core/minimizer.py transfers six per-position
-arrays per contig; on a remotely-attached TPU that transfer dominates the
-build. This module keeps the whole pipeline on device:
+arrays per contig to the host. This module keeps the whole pipeline on
+device:
 
   windows -> xur64 -> trailing-window (ldiff) minimizer argmin ->
   LSH residue filter -> (row, residual) sort + neighbour dedupe ->
@@ -170,7 +170,6 @@ def winnow_device(codes: jax.Array, n_real: jax.Array, lsh: LSHParams,
 
 # maximum single-compile tile: one XLA program per power-of-two shape up to
 # this; longer contigs are processed in halo-overlapped tiles of this size
-# (each cold compile through the remote compiler costs minutes)
 _CHUNK = 1 << 20
 
 

@@ -4,7 +4,7 @@ The reference builds per-genome dynamic hash tables and unions them up the
 guide tree under locks, fusing subset hashes per shared k-mer
 (ref: src/krepp.cpp:248-303, src/table.cpp:182-232). Here the union is a
 single global sort-and-group over (row, residual, leaf) triples — the natural
-TPU/accelerator formulation (device-sortable, shardable by row) with no
+accelerator formulation (device-sortable, shardable by row) with no
 locks and deterministic colors.
 """
 
@@ -141,7 +141,7 @@ def build_index_from_sources(names: List[str], contig_source,
     num_threads > 1 runs the whole per-genome extraction (file read +
     winnow + LSH + HLL) on a host thread pool — the native winnower is a
     pure C call that releases the GIL, so genomes winnow truly in parallel
-    (the TPU-native analogue of the reference's per-leaf OpenMP tasks,
+    (the analogue of the reference's per-leaf OpenMP tasks,
     ref: src/krepp.cpp:248-303). Results are consumed in input order, so
     the built index is independent of the pool schedule.
     """

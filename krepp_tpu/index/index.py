@@ -1,4 +1,4 @@
-"""DeviceIndex: the frozen LSH table + colors laid out for TPU querying.
+"""DeviceIndex: the frozen LSH table + colors laid out for device querying.
 
 The reference keeps per-residue partial tables and per-probe BFS color
 decoding (ref: src/index.{hpp,cpp}); here everything is re-binned at load

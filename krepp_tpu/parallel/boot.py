@@ -5,7 +5,7 @@ the XLA backend, and importing the engine modules creates device constants.
 Usage (one process per host, before importing anything else from krepp_tpu):
 
     from krepp_tpu.parallel.boot import init_distributed
-    init_distributed()          # auto-detected on TPU pods
+    init_distributed()          # arguments from KREPP_* env vars
     from krepp_tpu.parallel.multihost import MultiHostQueryEngine
 """
 
@@ -20,9 +20,9 @@ def init_distributed(coordinator_address: Optional[str] = None,
                      process_id: Optional[int] = None) -> None:
     """jax.distributed.initialize with env-var defaults.
 
-    On TPU pods the three arguments are auto-detected from the metadata
-    server; for CPU/GPU clusters (or tests) set KREPP_COORDINATOR,
-    KREPP_NUM_PROCESSES, KREPP_PROCESS_ID or pass them explicitly."""
+    Nothing detects a GPU or CPU cluster: set KREPP_COORDINATOR
+    (host:port), KREPP_NUM_PROCESSES and KREPP_PROCESS_ID, or pass the
+    arguments explicitly."""
     import jax
 
     coordinator_address = coordinator_address or os.environ.get(

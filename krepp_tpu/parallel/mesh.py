@@ -1,15 +1,17 @@
 """Multi-chip sharded querying: LSH-row-sharded index + data-parallel reads.
 
 The reference is single-process OpenMP (ref: src/krepp.cpp:356-394); the
-TPU-native scale-out shards the flat CSR by contiguous unified-row blocks
+scale-out here shards the flat CSR by contiguous unified-row blocks
 (balanced by ENTRY count, not row count) across the `shard` mesh axis — each
 probe's bucket lives entirely on one shard, so per-shard first-match
 histograms sum exactly — and shards read batches over the `data` axis.
 Collectives: psum of histogram partials and pmin of the global min-distance
-over `shard` — all riding ICI under one jit.
+over `shard` — all under one jit. The mesh is a plain reshape of the
+device list: the cards of one host are joined all to all, so no device
+order is better than another.
 
 Each shard carries the same hybrid bucket-row table + CSR heavy tail as the
-single-device engine (including the fused Pallas epilogue), so multi-chip
+single-device engine (including its probe epilogue), so multi-chip
 inherits the fast probe rather than the scan-loop formulation. Sparse row
 spaces (h >= 13 default indexes, ref: src/krepp.hpp:47-58) shard their
 nonempty-row id table the same way and binary-search shard-locally.
@@ -64,7 +66,7 @@ class ShardedQueryEngine(QueryEngine):
 
         # many-genome indexes keep the LANE form across shards: per-shard
         # event lanes all_gather over `shard` and join, so memory and
-        # collective volume stay independent of S (VERDICT r04 #5; the
+        # collective volume stay independent of S (the
         # dense [B, S, X] psum fallback remains behind KREPP_SHARD_DENSE)
         self._event_lanes = (self._use_event
                              and not os.environ.get("KREPP_SHARD_DENSE"))
@@ -293,11 +295,11 @@ class ShardedQueryEngine(QueryEngine):
     # ---------------------------------------------- sharded event lanes
     def _probe_and_lanes(self, tables, codes, lengths, leaf_ok,
                          lane_cap, exact: bool, tier: int):
-        """Event-mode lane pipeline under shard_map (VERDICT r04 #5).
+        """Event-mode lane pipeline under shard_map.
 
         Per-shard event lanes all_gather over `shard` and join + stage 2
         run replicated per data group INSIDE the step — no [B, S, X]
-        histogram is ever materialised or psum'd, so HBM and collective
+        histogram is ever materialised or psum'd, so memory and collective
         volume are independent of the genome count S. Hybrid/CSR modes
         keep the dense psum path (S is small there by construction)."""
         if not getattr(self, "_event_lanes", False):
@@ -315,7 +317,11 @@ class ShardedQueryEngine(QueryEngine):
         (idx, lv, present_l, hist_f, d_f, v_f, mc_f, uc_f, rho_l,
          best_slot, best_d, hist_c, uc_c, rho_c, v_c, ratio_l,
          onmers, lane_over_b, ov_b) = out
-        L = dict(idx=idx, lv=lv, present_l=present_l, hist_f=hist_f,
+        # owning read and leaf slot of each lane in the global read space,
+        # as QueryEngine._stage2_core defines them (place reads both)
+        lb = jnp.minimum(idx, B * S - 1) // S
+        L = dict(idx=idx, lv=lv, lb=lb, ls=jnp.minimum(idx, B * S - 1)
+                 - lb * S, present_l=present_l, hist_f=hist_f,
                  d_f=d_f, v_f=v_f, mc_f=mc_f, uc_f=uc_f, rho_l=rho_l,
                  best_slot=best_slot, best_d=best_d, hist_c=hist_c,
                  uc_c=uc_c, rho_c=rho_c, v_c=v_c, ratio_l=ratio_l,

@@ -1,15 +1,15 @@
 """Multi-host (multi-process) querying: the sharded engine over a global
 device mesh spanning hosts.
 
-The reference is a single OpenMP process (SURVEY §2.3); the TPU-native
-scale-out runs one process per host (`jax.distributed.initialize`), shards
-the index over the global `shard` axis (DCN between hosts, ICI within) and
+The reference is a single OpenMP process (SURVEY §2.3); the
+scale-out here runs one process per host (`jax.distributed.initialize`), shards
+the index over the global `shard` axis (network between hosts, NVLink within) and
 read batches over `data`. Every process executes the same SPMD program;
 index arrays are materialized per-process from the host copy via
 `make_array_from_callback` (only addressable shards are built locally).
 
 Smoke-tested with two CPU processes + Gloo collectives
-(tests/test_multihost.py) so the code path exists before pod hardware does.
+(tests/test_multihost.py) so the code path is tested without a cluster.
 """
 
 from __future__ import annotations

@@ -40,7 +40,7 @@ class DistConfig:
     no_filter: bool = True
     summarize: bool = False
     # device batch granularity (output-neutral; the reference's 76.8 kbp
-    # batches are too small to feed a TPU, ref: src/rqseq.hpp:10-11)
+    # batches are too small to fill an accelerator, ref: src/rqseq.hpp:10-11)
     batch_bp: int = 16384 * 150
     # multi-host per-process output slicing: (rank, nranks) restricts row
     # emission to this process's read slice of every batch (the compute is

@@ -1,9 +1,9 @@
 """Event-formulated stage-1 probe: scalable to many-genome indexes.
 
 The mask probe expands every matched color to an S-bit leaf plane per
-(position, hdist) — O(S) VPU work per probe and O(nse * S/32) HBM for the
+(position, hdist) — O(S) work per probe and O(nse * S/32) memory for the
 bitmask table, both infeasible past a few hundred genomes. The event probe
-replaces planes with *match events*, the TPU reformulation of the
+replaces planes with *match events*, the data-parallel reformulation of the
 reference's per-read sparse maps (ref: src/query.hpp:153-176):
 
   1. collect matched (probe-lane, se, hd) pairs — light buckets read their
@@ -124,6 +124,9 @@ def event_probe_lanes(slots_d, enc_se, row_start, leaf_off, leaf_slots,
     ML = NL * C0
     ev_ok_parts = [lm.reshape(ML)]
     if max_bucket > C0:
+        # a capacity tier can ask for more heavy slots than there are
+        # resident lanes; the compaction returns at most NL
+        KH = min(KH, NL)
         hidx, nheavy, blk_over = compact_mask_indices_strided(heavy, KH)
         overflow = overflow | (nheavy > KH) | blk_over
         # the compaction emits only set lanes; hidx < NL marks live
@@ -410,8 +413,7 @@ def event_probe(slots_d, enc_se, row_start, leaf_off, leaf_slots,
     # Each event e owns output slots [cum[e]-cards[e], cum[e]). The owner of
     # slot t is recovered with a sorted scatter of one mark per event at its
     # start slot + a cumsum — O(M + CAP_L) instead of the O(CAP_L * log M)
-    # random gathers a searchsorted would cost (binary search dominates the
-    # whole probe on TPU).
+    # random gathers a searchsorted would cost.
     se_ok = jnp.where(ev_ok, ev_se, 0).astype(jnp.int64)
     cards = jnp.where(ev_ok, leaf_off[se_ok + 1] - leaf_off[se_ok], 0)
     cum = jnp.cumsum(cards)                              # int64 [M]

@@ -47,23 +47,15 @@ class PlaceConfig:
     emit_slice: Optional[tuple] = None
 
 
+def _support(wpos, present):
+    """[B, Q+1] bool: some present leaf lies under each node. The 0/1 f32
+    contraction counts at most S < 2^24 leaves, exact at HIGHEST precision
+    (no TF32 rounding of the operands)."""
+    return jnp.einsum("qs,bs->bq", wpos.astype(jnp.float32),
+                      present.astype(jnp.float32),
+                      precision=jax.lax.Precision.HIGHEST,
+                      preferred_element_type=jnp.float32) > 0
 
-def _w_einsum(spec, W, x):
-    """Damping-weight einsum W (f64) x integer-valued counts.
-
-    On TPU an f64 einsum lowers to an emulated double-float gemm loop
-    (~10 ms per call at place shapes); two native f32 MXU passes over the
-    float-float halves of W recover ~1e-7 relative accuracy — far below
-    the 5-decimal output grid — while the counts (<= a few hundred) are
-    exact f32. CPU keeps the plain f64 contraction (oracle parity)."""
-    if jax.default_backend() == "cpu":
-        return jnp.einsum(spec, W, x)
-    W_hi = W.astype(jnp.float32)
-    W_lo = (W - W_hi.astype(F)).astype(jnp.float32)
-    xf = x.astype(jnp.float32)
-    hi = jnp.einsum(spec, W_hi, xf, preferred_element_type=jnp.float32)
-    lo = jnp.einsum(spec, W_lo, xf, preferred_element_type=jnp.float32)
-    return hi.astype(F) + lo.astype(F)
 
 class PlaceAggregator:
     """Stage 3: leaf minfos -> per-placement-node stats (jitted).
@@ -128,8 +120,8 @@ class PlaceAggregator:
                      0.0))
         self._agg_jit = jax.jit(self._agg_impl)
         self._place_jits = {}
-        # stage-3 formulation by scale (VERDICT r04 #3: the lane path's
-        # sort chain costs more than it saves on small trees): dense
+        # stage-3 formulation by scale (the lane path's sort chain costs
+        # more than it saves on small trees): dense
         # damping-weight einsums when the [Qp, S] weight grid is small,
         # the ancestor-event lane path for many-genome worlds where
         # anything O(S) per read is the bound
@@ -146,13 +138,9 @@ class PlaceAggregator:
         k = self.engine.lsh.k
         W = self._W
         p = present.astype(F)                                  # [B, S]
-        histW = _w_einsum("qs,bsx->bqx", W, hist.astype(F) * p[..., None])
-        matchW = _w_einsum("qs,bs->bq", W, match.astype(F) * p)
-        # boolean support counts are <= S: exact in one f32 MXU pass
-        # (an f64 einsum lowers to an emulated double-float gemm loop)
-        support = jnp.einsum("qs,bs->bq", self._Wpos.astype(jnp.float32),
-                             p.astype(jnp.float32),
-                             preferred_element_type=jnp.float32) > 0
+        histW = jnp.einsum("qs,bsx->bqx", W, hist.astype(F) * p[..., None])
+        matchW = jnp.einsum("qs,bs->bq", W, match.astype(F) * p)
+        support = _support(self._Wpos, present)
         rhoW = jnp.max(
             jnp.where(self._Wpos[None, :, :] & present[:, None, :],
                       self._rho_slot[None, None, :], 0.0), axis=2)
@@ -172,11 +160,10 @@ class PlaceAggregator:
         rho_q = jnp.where(isl, leaf_rho, rhoW)
 
         # re-optimise internal candidates (ref: src/query.cpp:272-275);
-        # only supported internal nodes need the (f64-emulated) solver
+        # only supported internal nodes need the solver
         need = support & jnp.logical_not(isl)
         xs = jnp.arange(hist_q.shape[-1], dtype=F)
         A_q = jnp.sum(hist_q, axis=-1)
-        # mul+sum, not einsum: an f64 dot lowers to an emulated gemm loop
         Bx_q = jnp.sum(hist_q * xs[None, None, :], axis=-1)
         d_opt, v_opt = brent_on_mask(self._llh_fast, A_q, Bx_q, uc_q, rho_q,
                                      need)
@@ -229,14 +216,9 @@ class PlaceAggregator:
         # ---- dense ancestor aggregation (the _agg_impl einsums)
         W = self._W
         p = present.astype(F)                                  # [B, S]
-        histW = _w_einsum("qs,bsx->bqx", W,
-                          hist_f.astype(F) * p[..., None])
-        matchW = _w_einsum("qs,bs->bq", W, mc_f.astype(F) * p)
-        # boolean support counts are <= S: exact in one f32 MXU pass
-        # (an f64 einsum lowers to an emulated double-float gemm loop)
-        support = jnp.einsum("qs,bs->bq", self._Wpos.astype(jnp.float32),
-                             p.astype(jnp.float32),
-                             preferred_element_type=jnp.float32) > 0
+        histW = jnp.einsum("qs,bsx->bqx", W, hist_f.astype(F) * p[..., None])
+        matchW = jnp.einsum("qs,bs->bq", W, mc_f.astype(F) * p)
+        support = _support(self._Wpos, present)
         rhoW = jnp.max(
             jnp.where(self._Wpos[None, :, :] & present[:, None, :],
                       self._rho_slot[None, None, :], 0.0), axis=2)
@@ -273,7 +255,6 @@ class PlaceAggregator:
         c_hist = hist_q.reshape(M, X)[csafe]
         A_c = jnp.sum(c_hist, axis=1)
         xs = jnp.arange(X, dtype=F)
-        # mul+sum, not einsum: an f64 dot lowers to an emulated gemm loop
         Bx_c = jnp.sum(c_hist * xs[None, :], axis=1)
         c_isl = self._is_leaf_q[csafe % Qp]
         d_opt, v_opt = brent_on_mask(
@@ -336,9 +317,10 @@ class PlaceAggregator:
                                      num_segments=B + 1,
                                      indices_are_sorted=True)[:B]
 
-        # ---- expand lanes to ancestor events
+        # ---- expand lanes to ancestor events (a sharded engine may return
+        # more lanes than the cap asked for: its per-group caps have floors)
         Dm = self._Dmax
-        M = K * Dm
+        M = lv.shape[0] * Dm
         q_e = self._anc_q[ls]                      # [K, Dm]
         own = self._is_owner[ls] & lv              # [K]
         valid = pl[:, None] & (q_e > 0)
@@ -414,7 +396,6 @@ class PlaceAggregator:
         c_hist = hist_q[csafe]
         A_c = jnp.sum(c_hist, axis=1)
         xs = jnp.arange(X, dtype=F)
-        # mul+sum, not einsum: an f64 dot lowers to an emulated gemm loop
         Bx_c = jnp.sum(c_hist * xs[None, :], axis=1)
         d_opt, v_opt = brent_on_mask(
             self._llh_fast, A_c, Bx_c, uc_q[csafe], rho_q[csafe],

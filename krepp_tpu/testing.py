@@ -1,6 +1,7 @@
 """Synthetic-data helpers: generated phylogenies of mutated genomes,
-in-memory index builds, read samplers. Used by tests, __graft_entry__ and
-bench.py (no filesystem or network required).
+in-memory index builds, read samplers, and the plain reference of the
+probe-epilogue kernel. Used by tests, chip_smoke.py and bench.py (no
+filesystem or network required).
 
 Two representations: small string worlds (make_world) for oracle tests, and
 vectorized base-code worlds (make_world_codes) for benchmark-scale data.
@@ -115,3 +116,77 @@ def build_world_index(seed=0, nleaves=6, glen=2000, rate=0.05,
     built = build_index_from_sources(names, sources, params, tree,
                                      progress=False)
     return built, genomes, tree
+
+
+def epilogue_planes(seed, N, P, C0, W, S):
+    """Random probe-epilogue inputs (query/pallas_kernels.py layout) with
+    planted near matches, empty slots and dark lanes: (res [N, P] u32,
+    light [N, P] bool, C0 * (1 + W) entry planes [N, P] u32)."""
+    rng = np.random.default_rng(seed)
+    res = rng.integers(0, 2 ** 32, (N, P), dtype=np.uint32)
+    light = rng.random((N, P)) < 0.8
+    ents = []
+    for _c in range(C0):
+        noise = np.zeros((N, P), np.uint32)
+        for j in range(3):
+            # each flip lands in the folded 16 bits (bit i or i + 16)
+            bit = rng.integers(0, 16, (N, P)) + 16 * (j % 2)
+            noise ^= np.left_shift(np.uint32(1), bit.astype(np.uint32))
+        noise *= (rng.random((N, P)) < 0.7).astype(np.uint32)
+        enc = np.where(rng.random((N, P)) < 0.6, res ^ noise,
+                       rng.integers(0, 2 ** 32, (N, P), dtype=np.uint32))
+        ents.append(enc.astype(np.uint32))
+        for w in range(W):
+            nbits = min(32, S - 32 * w)
+            m = rng.integers(0, 2 ** 32, (N, P), dtype=np.uint32)
+            m &= np.uint32((1 << nbits) - 1)
+            m[rng.random((N, P)) < 0.2] = 0
+            ents.append(m)
+    return res, light, ents
+
+
+_POPCOUNT16 = np.array([bin(i).count("1") for i in range(1 << 16)], np.int32)
+
+
+def epilogue_reference(res, light, ents, th, C0, W, S):
+    """numpy probe epilogue: per-(read, leaf) histogram of first-match
+    classes (the minimum Hamming distance per position and leaf, ref:
+    src/query.hpp:153-176) and the per-read min matched distance (255 when
+    none)."""
+    N, P = res.shape
+    X = th + 1
+    mh = np.full((N, P, S), X, np.int32)
+    minall = np.full(N, 255, np.int32)
+    for c in range(C0):
+        z = ents[c * (1 + W)] ^ res
+        hd = _POPCOUNT16[(z | (z >> np.uint32(16))) & np.uint32(0xFFFF)]
+        ok = (hd <= th) & light
+        for s in range(S):
+            w, b = divmod(s, 32)
+            bit = (ents[c * (1 + W) + 1 + w] >> np.uint32(b)) & np.uint32(1)
+            hit = ok & (bit != 0)
+            mh[..., s] = np.where(hit, np.minimum(mh[..., s], hd),
+                                  mh[..., s])
+            minall = np.minimum(minall, np.where(hit, hd, 255).min(axis=1))
+    hist = np.stack([(mh == x).sum(axis=1, dtype=np.int32)
+                     for x in range(X)], axis=-1)
+    return hist, minall
+
+
+def check_epilogue_kernel(N=4096, P=164, th=4):
+    """Compiled probe-epilogue kernel against epilogue_reference at read
+    width (150 bp reads padded to 192 bases, k=29) for one and three mask
+    words; raises on any difference."""
+    import jax.numpy as jnp
+
+    from .query.pallas_kernels import probe_hist_packed
+
+    for W, S in ((1, 24), (3, 96)):
+        res, light, ents = epilogue_planes(W, N, P, 2, W, S)
+        hist, minall = probe_hist_packed(
+            jnp.asarray(res), jnp.asarray(light),
+            [jnp.asarray(e) for e in ents], th, 2, W, S)
+        ref_h, ref_m = epilogue_reference(res, light, ents, th, 2, W, S)
+        if not (np.array_equal(np.asarray(hist), ref_h)
+                and np.array_equal(np.asarray(minall), ref_m)):
+            raise AssertionError(f"epilogue kernel differs at W={W} S={S}")

@@ -1,6 +1,6 @@
 """Pure-Python oracle: a direct, slow transliteration of the reference
 algorithm's *semantics* (bit-level k-mer codec, LSH, winnowing, likelihood),
-used only to validate the vectorized TPU implementation.
+used only to validate the vectorized device implementation.
 
 Everything operates on Python ints; citations point at the reference
 definitions each function mirrors.

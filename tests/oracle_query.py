@@ -1,5 +1,5 @@
 """Full-pipeline oracle: reference-semantics index build + dist + place in
-pure Python (slow, exact). Used to validate the TPU pipeline end-to-end.
+pure Python (slow, exact). Used to validate the device pipeline end-to-end.
 
 Mirrors: build_for_subtree + DynHT (ref: src/krepp.cpp:248-303,
 src/table.cpp), IBatch::search_mers/add_matching_mer/summarize_matches

@@ -137,7 +137,7 @@ def test_pack_bits_roundtrip():
 
 
 def test_strand_hashes_conv_exact():
-    """The MXU-conv formulation must match the slice-sum hashes bit-for-bit
+    """The convolution formulation must match the slice-sum hashes bit-for-bit
     on valid windows, across parameter corners (incl. h=15, k-h=16)."""
     rng = np.random.default_rng(9)
     from krepp_tpu.params import LSHParams

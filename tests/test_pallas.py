@@ -1,70 +1,75 @@
-"""Pallas kernel contract vs the XLA reference implementation (interpret
-mode on CPU)."""
+"""Packed-counter probe epilogue (Pallas, Triton route) against the XLA
+epilogue and a numpy reference: interpret mode here, compiled on a GPU."""
 
 import numpy as np
+import pytest
+import jax
 import jax.numpy as jnp
 
-from krepp_tpu.query.pallas_kernels import hdist_chunk, hdist_chunk_xla
+from krepp_tpu.query.pallas_kernels import probe_hist_packed
+from krepp_tpu.testing import epilogue_planes, epilogue_reference
 
 
-def test_hdist_chunk_matches_xla():
-    rng = np.random.default_rng(0)
-    N, C = 3000, 8
-    res = rng.integers(0, 2 ** 32, N, dtype=np.uint32)
-    enc = rng.integers(0, 2 ** 32, (N, C), dtype=np.uint32)
-    # plant close matches
-    for i in range(0, N, 7):
-        enc[i, i % C] = res[i] ^ np.uint32(1 << (i % 16))
-    cnt = rng.integers(0, C + 1, N, dtype=np.int32)
-    hd_p, mn_p = hdist_chunk(jnp.asarray(res), jnp.asarray(enc),
-                             jnp.asarray(cnt), th=4, interpret=True)
-    hd_x, mn_x = hdist_chunk_xla(jnp.asarray(res), jnp.asarray(enc),
-                                 jnp.asarray(cnt), th=4)
-    assert np.array_equal(np.asarray(hd_p), np.asarray(hd_x))
-    assert np.array_equal(np.asarray(mn_p), np.asarray(mn_x))
+@pytest.mark.parametrize("th", [2, 4])
+@pytest.mark.parametrize("W,S", [(1, 24), (2, 40)])
+def test_packed_epilogue_interpret_matches_reference(th, W, S):
+    N, P, C0 = 37, 164, 2      # N not a tile multiple, P two chunks
+    res, light, ents = epilogue_planes(th * 10 + W, N, P, C0, W, S)
+    hist, minall = probe_hist_packed(
+        jnp.asarray(res), jnp.asarray(light), [jnp.asarray(e) for e in ents],
+        th, C0, W, S, interpret=True)
+    ref_h, ref_m = epilogue_reference(res, light, ents, th, C0, W, S)
+    assert hist.shape == (N, S, th + 1)
+    assert np.array_equal(np.asarray(hist), ref_h)
+    assert np.array_equal(np.asarray(minall), ref_m)
+    assert ref_h.sum() > 0 and (ref_m < 255).any()
 
 
-def test_hdist_chunk_nonmultiple_tile():
-    rng = np.random.default_rng(1)
-    N, C = 1537, 4
-    res = rng.integers(0, 2 ** 32, N, dtype=np.uint32)
-    enc = rng.integers(0, 2 ** 32, (N, C), dtype=np.uint32)
-    cnt = np.full(N, C, np.int32)
-    hd_p, mn_p = hdist_chunk(jnp.asarray(res), jnp.asarray(enc),
-                             jnp.asarray(cnt), th=4, interpret=True)
-    hd_x, mn_x = hdist_chunk_xla(jnp.asarray(res), jnp.asarray(enc),
-                                 jnp.asarray(cnt), th=4)
-    assert np.array_equal(np.asarray(hd_p), np.asarray(hd_x))
-    assert np.array_equal(np.asarray(mn_p), np.asarray(mn_x))
+def test_packed_epilogue_rejects_wide_counters():
+    res = jnp.zeros((4, 256), jnp.uint32)
+    with pytest.raises(ValueError):
+        probe_hist_packed(res, res != 0, [res, res], 4, 1, 1, 8,
+                          interpret=True)
 
 
-def test_probe_epilogue_matches_xla_engine():
-    """The fused Pallas probe epilogue (interpret mode) must reproduce the
-    XLA direct-probe outputs bit-for-bit on a real small index."""
-    import jax
-
+def _engine_probe_pair(nleaves, mode):
+    """(XLA, kernel) probe outputs of one engine on a small real index."""
     from krepp_tpu.index.index import DeviceIndex
     from krepp_tpu.query.engine import QueryEngine
     from krepp_tpu.testing import build_world_index, sample_read_codes
 
-    built, genomes, _ = build_world_index(seed=11, nleaves=6, glen=1500, m=2)
-    di = DeviceIndex.from_built(built)
-    engine = QueryEngine(di, hdist_th=4)
+    built, genomes, _ = build_world_index(seed=11, nleaves=nleaves, glen=1500,
+                                          m=2)
+    engine = QueryEngine(DeviceIndex.from_built(built), hdist_th=4)
     assert engine.mode == "hybrid"
     rng = np.random.default_rng(12)
     codes = sample_read_codes(rng, genomes, 32, rlen=150, mut=0.08)
-    # inject Ns + a short read
-    codes[0, 30:34] = 4
+    codes[0, 30:34] = 4                     # Ns and a short read
     lengths = np.full(32, 150, np.int32)
     lengths[1] = 97
+    args = (engine._tables, jnp.asarray(codes), jnp.asarray(lengths))
+    out = []
+    for kernel in (None, mode):
+        engine.epilogue_kernel = kernel
+        out.append(jax.device_get(tuple(jax.jit(engine._probe_impl)(*args))))
+    return engine, out
 
-    probe = jax.jit(engine._probe_impl)
-    engine._use_pallas = False
-    ref = jax.device_get(tuple(probe(
-        engine._tables, jnp.asarray(codes), jnp.asarray(lengths))))
-    engine._use_pallas = True
-    probe2 = jax.jit(engine._probe_impl)
-    got = jax.device_get(tuple(probe2(
-        engine._tables, jnp.asarray(codes), jnp.asarray(lengths))))
+
+@pytest.mark.parametrize("nleaves", [6, 70])
+def test_probe_epilogue_matches_xla_engine(nleaves):
+    """The kernel (interpret mode) reproduces the XLA probe outputs
+    bit-for-bit on a real small index: one mask word embedded in the rows,
+    and two words gathered through the color table."""
+    engine, (ref, got) = _engine_probe_pair(nleaves, "interpret")
+    assert engine.W == (nleaves + 31) // 32
+    assert engine.hflavor == ("embed" if nleaves <= 64 else "se")
     for a, b in zip(ref[:5], got[:5]):
         assert np.array_equal(np.asarray(a), np.asarray(b))
+
+
+@pytest.mark.gpu
+def test_packed_epilogue_compiled_matches_reference(gpu_device):
+    """The compiled Triton kernel at read width (P = 164) against numpy."""
+    from krepp_tpu.testing import check_epilogue_kernel
+
+    check_epilogue_kernel()

@@ -3,7 +3,7 @@
 The reference binary itself cannot be built in this image (CLI11/boost
 submodules are stripped), but sdust.h is self-contained C (kvec/kdq/kalloc
 only, all present) — so the masker gets a true compiled oracle. Covers the
-corners VERDICT called out: N-breaks, window-exit flush order, the
+corners: N-breaks, window-exit flush order, the
 triplet-overflow (cv*10 > 2T) suffix shrink, homopolymers, tandem repeats.
 """
 
